@@ -7,9 +7,9 @@ robustness of the model to mis-specification", R/clonealign.R:141-144; the
 generator is the model3 spec, inst/create_model3_synthetic.R:8, where rho_g
 is the per-gene dosage indicator.)
 
-This sweeps the dosage fraction and reports assignment accuracy per level —
-the TPU build runs the full sweep in seconds. One JSON line per level;
-optional accuracy curve PNG with --plot.
+This sweeps the dosage fraction and reports assignment accuracy per level:
+one JSON line per level, each naming the device; optional accuracy curve
+PNG with --plot.
 """
 
 import argparse
@@ -51,6 +51,7 @@ def main():
     from clonealign_tpu import clonealign
     from clonealign_tpu.synth import assignment_accuracy
     from clonealign_tpu.utils.cache import enable_persistent_cache
+    from clonealign_tpu.utils.profiling import device_label
 
     enable_persistent_cache()
 
@@ -68,6 +69,7 @@ def main():
             "accuracy_min": round(float(np.min(accs)), 4),
             "repeats": args.repeats,
         }
+        row["hw"] = device_label()
         results.append(row)
         print(json.dumps(row), flush=True)
 

@@ -5,7 +5,8 @@ Configs (BASELINE.json):
   2. synthetic model3 1k x 500 x 5
   3. multi-restart: 10 vmapped fits, 5k x 1k, max-ELBO selection
   4. allele-specific joint fit
-  5. large-scale 100k x 5k x 10, 10 restarts (TPU; set SKIP_LARGE=1 to skip)
+  5. large-scale 100k x 5k x 10, 10 restarts (needs a GPU; set SKIP_LARGE=1
+     to skip)
 
 Usage: python benchmarks/run_all.py
 """
@@ -21,11 +22,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def report(name, n_cells, n_restarts, elapsed, fit=None, extra=None):
+    from clonealign_tpu.utils.profiling import device_label
+
     out = {
         "config": name,
         "elapsed_s": round(elapsed, 3),
         "cells_per_sec": round(n_cells * n_restarts / elapsed, 1),
         "steps_per_sec": None,
+        "hw": device_label(),
         **(extra or {}),
     }
     if fit is not None:

@@ -1,6 +1,6 @@
-"""Single-chip scale headroom: 500k cells x 2k genes x 10 clones,
-10-restart sweep. Prints one JSON line (documented result: ~6.8s on one
-v5e chip = 740k cells-assigned/s, ground-truth accuracy 1.0).
+"""One-device scale headroom: 500k cells x 2k genes x 10 clones,
+10-restart sweep. Prints one JSON line naming the device it ran on
+(ground-truth accuracy is expected at 1.0).
 
 Usage: python benchmarks/scale_test.py [--cells 500000] [--genes 2000]
 """
@@ -28,14 +28,9 @@ def main():
     ap.add_argument("--impl", default="auto", choices=("auto", "z_cheb"),
                     help="likelihood backend (z_cheb: Chebyshev normalizer)")
     ap.add_argument("--batching", default="map", choices=("map", "vmap"),
-                    help="restart batching probe knob. Measured (v5e, "
-                    "results_tpu_r3.jsonl probes z_cheb_vmap_at_scale + "
-                    "cheb_custom_vjp): with z_cheb the vmapped sweep runs "
-                    "at 500k x 2k (its per-lane working set is O(N*C*D), "
-                    "not O(N*G)) but still loses to the sequential map "
-                    "(5.15 vs 3.95 s at 10 restarts, custom-VJP era) - "
-                    "Y-read sharing does not pay at this size, so 'map' "
-                    "stays the default")
+                    help="restart batching probe knob (with z_cheb the "
+                    "per-lane working set is O(N*C*D), not O(N*G), so "
+                    "vmap fits at 500k x 2k)")
     args = ap.parse_args()
 
     import jax
@@ -45,6 +40,7 @@ def main():
     from clonealign_tpu.infer import run_inference
     from clonealign_tpu.models import multinomial as mm
     from clonealign_tpu.utils.cache import enable_persistent_cache
+    from clonealign_tpu.utils.profiling import device_label
 
     enable_persistent_cache()
     N, G, C, R = args.cells, args.genes, args.clones, args.restarts
@@ -121,12 +117,13 @@ def main():
 
     acc = float((a == np.asarray(z)).mean())
     print(json.dumps({
-        "metric": f"scale test {N}x{G}x{C}, {R} restarts, single chip, {ingest}"
+        "metric": f"scale test {N}x{G}x{C}, {R} restarts, one device, {ingest}"
         + ("" if args.impl == "auto" else f", {args.impl}")
         + ("" if args.batching == "map" else ", vmap restarts"),
         "elapsed_s": round(elapsed, 2),
         "cells_per_sec": round(N * R / elapsed, 1),
         "accuracy": acc,
+        "hw": device_label(),
     }))
 
 

@@ -1,7 +1,7 @@
-"""clonealign-tpu: TPU-native probabilistic assignment of scRNA-seq cells to
-cancer clones.
+"""clonealign-tpu: accelerator-native probabilistic assignment of scRNA-seq
+cells to cancer clones, run on NVIDIA GPUs (H100) through JAX and XLA.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX/XLA reimplementation of the capabilities of
 kieranrcampbell/clonealign (Campbell et al., Genome Biology 2019): clones are
 defined by copy-number profiles from shallow scDNA-seq, and cells measured
 with scRNA-seq are assigned to them by reparametrization-gradient variational

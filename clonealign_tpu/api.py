@@ -212,10 +212,9 @@ def _auto_y_storage(y_values):
 
 def _resolve_auto_impl(K, P, mc_samples, jdtype, n_elements) -> str:
     """Resolve ``likelihood_impl="auto"`` to the configuration that was
-    actually benchmarked and parity-proven (round 3,
-    benchmarks/results_tpu_r3.jsonl z_cheb_converged_parity: converged
-    z_cheb fits meet the SAME f64-oracle bar as the exact path with
-    identical assignments): the Chebyshev normalizer in the default
+    benchmarked and parity-proven (converged z_cheb fits meet the SAME
+    f64-oracle bar as the exact path with identical assignments,
+    tests/golden/parity_oracle.npz): the Chebyshev normalizer in the default
     K=1 / no-covariate / single-MC-sample / float32 corner, the exact
     XLA normalizer everywhere else (float64 fits stay exact-path —
     they are the oracle configuration, and z_cheb's degree was tuned
@@ -223,15 +222,13 @@ def _resolve_auto_impl(K, P, mc_samples, jdtype, n_elements) -> str:
     run_inference re-evaluates the final 20-sample ELBO through the
     exact normalizer whenever training used z_cheb.
 
-    Size gate (round 4, measured on-chip): z_cheb exists for
-    throughput, and its per-step saving is unmeasurable below ~1M
-    retained N x G elements — while on TINY marginal problems the
-    DEFAULT-precision trajectory can settle ~1e-4 relative from the
-    f64 oracle (200x100 example: 1.17e-4; 1000x400 allele toy also
-    missed; 5000x1000 and the 100k x 5k headline pass the bar —
-    benchmarks/results_tpu_r4.jsonl tpu_profile row). Below the gate
-    the exact normalizer costs nothing and keeps toy fits
-    hardware-exact. ``fit_streaming`` applies the same rule over the
+    Size gate: z_cheb exists for throughput, and its per-step saving is
+    negligible below ~1M retained N x G elements, where the exact
+    normalizer costs next to nothing. With the bf16 matmuls of the
+    accelerator the system was first built for, z_cheb trajectories of
+    TINY marginal problems settled just past the 1e-4 oracle bar; on an
+    H100 the 200x100 example meets it (PERF.md), and the gate stays until
+    it is re-measured. ``fit_streaming`` applies the same rule over the
     total (pre-chunk) N x G."""
     if (K == 1 and P == 0 and int(mc_samples) == 1
             and jdtype == jnp.float32 and int(n_elements) >= 1_000_000):
@@ -288,8 +285,7 @@ def setup_fit(
     # redundant: integers cannot be NaN/inf, the table-stats programs in
     # prepare_data enforce non-negativity on device (min count), and the
     # zero-count-cell check runs below from the device row sums — skipping
-    # the O(N x G) host scan (measured ~0.8-1.7 s at 100k x 5k; on a real
-    # TPU host the remaining host passes, not the PCIe link, bound setup).
+    # an O(N x G) host scan.
     device_validated = (
         not sparse_input
         and isinstance(Y, np.ndarray)
@@ -346,17 +342,6 @@ def setup_fit(
         clone_allele, cov, ref, N, C, jdtype, verbose
     )
 
-    if likelihood_impl == "fused":
-        # Retired as a fit option (round 4): the Pallas kernel measured
-        # slower than the XLA decomposed path in EVERY probed regime
-        # (docs/design.md section 2b; benchmarks/results_tpu_r3.jsonl
-        # pallas_vs_xla_regimes). The kernel itself survives as a tested
-        # scaffold — import clonealign_tpu.ops.fused_likelihood directly.
-        raise ValueError(
-            "likelihood_impl='fused' was retired: the Pallas kernel lost to "
-            "the XLA path in every measured regime (docs/design.md §2b). "
-            "Use 'auto' (default), 'xla', or 'z_cheb'."
-        )
     if likelihood_impl not in ("auto", "xla", "z_cheb"):
         raise ValueError(
             "likelihood_impl must be one of 'auto', 'xla', "
@@ -364,14 +349,14 @@ def setup_fit(
         )
     if likelihood_impl == "z_cheb":
         # validate the K/P support eagerly — a pure configuration error must
-        # surface BEFORE the (possibly ~20 s at headline scale) host
-        # validation + device upload in prepare_data below
+        # surface BEFORE the host validation + device upload in
+        # prepare_data below
         mm._use_z_cheb(mm.ModelConfig(
             K=K, P=P, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
             likelihood_impl="z_cheb",
         ))
-    # int16/int8 store counts EXACTLY (bf16 rounds above 256) and are the
-    # fastest options (docs/design.md section 2); prepare_data raises if any
+    # int16/int8 store counts EXACTLY (bf16 rounds above 256) and move the
+    # fewest bytes per likelihood pass; prepare_data raises if any
     # count would overflow the range. "auto" picks the narrowest exact
     # integer dtype, falling back to full precision for fractional counts.
     storage_map = {
@@ -544,8 +529,7 @@ def _fit_program(
 
     Module-level with static config so repeat ``clonealign()`` calls on
     same-shaped data REUSE the compiled program (a per-call ``@jax.jit``
-    closure would recompile every invocation — several seconds locally and
-    minutes over a remote-compile service). Data is an argument, never a
+    closure would recompile every invocation). Data is an argument, never a
     closure: closed-over device arrays are baked into the serialized program
     as constants.
     """

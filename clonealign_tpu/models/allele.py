@@ -8,7 +8,7 @@ an equal mixture of BetaBinomial(0.1, 1.9) and BetaBinomial(1.9, 0.1).
 Summing over variants gives an (N, C) clone log-likelihood added to the
 expression term (reference R/inference-tflow.R:302-304).
 
-TPU form: the per-variant mixture terms are precomputed once as (V, N)
+Accelerator form: the per-variant mixture terms are precomputed once as (V, N)
 matrices; the clone selection + variant sum is two (N, V) x (V, C) matmuls
 instead of the reference's stacked/transposed (C, V, N) where-reduce
 (reference R/allele-specific.R:37-47).

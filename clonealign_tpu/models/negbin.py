@@ -18,7 +18,7 @@ lambda, rho_init)`. SURVEY.md §2.2 item 14 records the functions as dead
 references; this module rebuilds the family rather than the (unavailable)
 line-level behavior.
 
-TPU-first design, mapped from those semantics:
+Accelerator-first design, mapped from those semantics:
 
 - The Gibbs sweep over (pi_n, rho_g) becomes a *structured mean-field*
   E-step q(pi, rho) = prod_n q(pi_n) prod_g q(rho_g) with closed-form CAVI
@@ -125,7 +125,7 @@ def _accumulate(params: NegbinParams, data: NegbinData, gene_w, cell_w):
     fusion keeps both the f32 forward values and the autodiff cotangents
     (y - (y+phi) m_c/(phi+m_c), netted per element) at residual scale
     instead of big-sum-minus-big-sum scale. It also keeps the only dots
-    (N,G)-by-vector matvecs, which XLA lowers off the MXU at full f32.
+    (N,G)-by-vector matvecs, which XLA runs at full f32.
     """
     beta = jnp.exp(params.log_beta)
     phi = jnp.exp(params.log_phi)
@@ -325,11 +325,11 @@ def _elbo_extras(params: NegbinParams, data: NegbinData,
 # node table (d/dlog_mu of the llk0 y-coefficient evaluates 1 - sigma at the
 # nodes: no big-minus-big cancellation ever materializes at stats scale).
 #
-# All Y-carrying matmuls are pinned to full precision: routing Y through the
-# MXU's default bf16 single pass was measured to cost real accuracy on this
-# family (clone accuracy 1.0 -> 0.88, NEWS 0.3.0), and these thin
-# contractions are HBM-bound, so HIGHEST is free (same measurement as the
-# v2 A-group pin, models/multinomial.py).
+# All Y-carrying matmuls are pinned to full precision: reduced-precision
+# matmul inputs were measured to cost real accuracy on this family (clone
+# accuracy 1.0 -> 0.88, NEWS 0.3.0), and these thin contractions are bound
+# by reading Y, so HIGHEST costs nothing (the same reasoning as the v2
+# A-group pin, models/multinomial.py).
 
 
 class NegbinChebStats(NamedTuple):
@@ -1049,7 +1049,7 @@ def gibbs_pi_rho(
 ):
     """Collapsed Gibbs sweep over (pi_n, rho_g) — the reference's deleted
     `gibbs_pi_rho(rho, data, params, n_iter)` (called at
-    inst/create_model3_synthetic.R:45), rebuilt TPU-native.
+    inst/create_model3_synthetic.R:45), rebuilt as array programs.
 
     Each sweep samples every cell's clone jointly (one categorical over the
     rho-gated log-likelihood — cells are conditionally independent given

@@ -1,6 +1,6 @@
 """Multi-host (multi-process) execution helpers.
 
-A clonealign fit across TPU slices follows the standard JAX multi-controller
+A clonealign fit across several hosts follows the standard JAX multi-controller
 recipe: every host runs the same program, holds a shard of the cells, and
 the GSPMD-sharded fit (sharding.py) executes collectively. These helpers
 wrap the three steps; on a single host they degenerate gracefully, so the

@@ -1,12 +1,13 @@
 """Device-mesh parallelism for clonealign fits.
 
 The reference is a single R process driving one TF session (SURVEY.md §2.2,
-"Parallelism strategies: none"). The TPU-native distributed surface maps the
+"Parallelism strategies: none"). The distributed surface maps the
 model's structure onto a 2-D mesh:
 
 * ``cells`` axis (data parallel): every per-cell tensor — Y rows, size
   factors, responsibilities gamma, latent factors psi — shards over it. The
-  ELBO and gradients are sums over cells, so XLA inserts ``psum``s over ICI.
+  ELBO and gradients are sums over cells, so XLA inserts all-reduces over
+  the device interconnect (NVLink between the GPUs of one host).
 * ``genes`` axis (model/tensor parallel): per-gene tensors — Y columns, L,
   qmu loc/scale, W, beta — shard over it. The likelihood contractions
   (Y @ W, Y @ log mu, the Z normalizer) contract over genes, so XLA inserts
@@ -118,7 +119,8 @@ def shard_extra_log_lik(extra_log_lik, mesh: Mesh):
     """Place the (N, C) allele-specific log-likelihood term
     (models/allele.py, reference R/inference-tflow.R:302-304) on the cells
     axis. It is per-cell data like Y's rows — left unannotated GSPMD would
-    replicate it on every device, which wastes HBM and ICI at scale."""
+    replicate it on every device, which wastes memory and interconnect
+    bandwidth at scale."""
     if extra_log_lik is None:
         return None
     return jax.device_put(extra_log_lik, NamedSharding(mesh, P(CELL_AXIS, None)))

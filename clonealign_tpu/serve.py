@@ -10,8 +10,7 @@ closed form — no optimization:
     p_c ∝ mu * L[:, c]                       (rfe = 1 for unseen cells)
 
 which reuses the decomposed likelihood: Y_new @ log L − t · log Z(c) up to
-per-cell constants. One matmul per batch of cells; thousands of cells per
-millisecond on TPU.
+per-cell constants. One matmul per batch of cells.
 
 For models fitted with a latent factor (K > 0), rfe = 1 drops the per-cell
 ``exp(psi_n . W_g)`` modulation. ``latent="refine"`` restores it with a
@@ -43,8 +42,9 @@ def _posterior_log_probs(Y, L, mu, log_alpha):
 
     ``Y`` may arrive in a narrow integer dtype (see :func:`assign_cells`) —
     contractions promote to f32 on the fly. Full matmul precision: serving
-    batches are transfer-bound over PCIe, so the MXU passes are free, and
-    default bf16 passes on TPU could flip threshold-boundary calls vs CPU."""
+    batches are transfer-bound over PCIe, so full-precision passes cost
+    nothing, and reduced-precision inputs (TF32 on a GPU's tensor cores)
+    could flip threshold-boundary calls vs CPU."""
     rates = mu[:, None] * L  # (G, C)
     log_rates = jnp.where(rates > 0, jnp.log(jnp.where(rates > 0, rates, 1.0)), -jnp.inf)
     ylogr = Y @ jnp.where(jnp.isfinite(log_rates), log_rates, 0.0)  # (N, C)

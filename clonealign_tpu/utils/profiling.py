@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 
@@ -35,3 +36,22 @@ def timed(label: str = "", sink=print):
         # flush any in-flight device work before reading the clock
         (jax.effects_barrier if hasattr(jax, "effects_barrier") else lambda: None)()
         sink(f"{label or 'block'}: {time.perf_counter() - t0:.3f}s")
+
+
+def device_label() -> str:
+    """What a measurement ran on: JAX's platform, device kind and count,
+    e.g. ``"gpu NVIDIA H100 80GB HBM3 x1"``."""
+    import jax
+
+    devs = jax.devices()
+    return f"{devs[0].platform} {devs[0].device_kind} x{len(devs)}"
+
+
+def gpu_name_and_power_limit() -> list[str]:
+    """Each card's name and power limit as ``nvidia-smi`` reports them, from
+    a child process that does not touch JAX."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]

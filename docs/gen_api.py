@@ -79,9 +79,6 @@ SECTIONS = [
         "clonealign_tpu.parallel.distributed.initialize",
         "clonealign_tpu.parallel.distributed.host_local_to_global",
     ]),
-    ("Pallas ops", [
-        "clonealign_tpu.ops.fused_likelihood.fused_likelihood_terms",
-    ]),
     ("Data IO", [
         "clonealign_tpu.io.datasets.load_example_sce",
         "clonealign_tpu.io.datasets.load_df_cnv",

@@ -1,7 +1,7 @@
 """Float64 NumPy oracle: a literal transcription of the reference's TF graph
 semantics (reference R/inference-tflow.R:276-336), materializing the full
 (S, C, N, G) probability tensor exactly as the reference does. Used only in
-tests to validate the decomposed TPU implementation term by term.
+tests to validate the decomposed device implementation term by term.
 """
 
 import numpy as np

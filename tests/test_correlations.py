@@ -66,8 +66,8 @@ def test_compute_correlations_coo_input():
 
 def test_device_path_matches_host():
     """The accelerator sufficient-statistics path (assign._clone_sums_device
-    — used by the fit drivers when Y is device-resident; replaces a measured
-    14.3 s host pass at 100k x 5k, benchmarks/results_tpu_r4.jsonl) must
+    — used by the fit drivers when Y is device-resident; replaces a host
+    pass over all of N x G) must
     reproduce the host pass: bit-comparably at float64 residency, and to QC
     precision for int8-stored counts."""
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""ELBO parity: the decomposed TPU-form likelihood/ELBO must match a literal
+"""ELBO parity: the decomposed likelihood/ELBO must match a literal
 float64 transcription of the reference graph (tests/oracle.py) term by term.
 This is the numerical-parity bar from BASELINE.md (1e-4 relative), tested at
 float64 where agreement should be ~1e-10.

@@ -151,8 +151,7 @@ def test_chunked_prepare_matches_unchunked_exactly():
 )
 def test_chunked_wire_dtype_matrix(host_dt, storage):
     """The narrow-wire upload (round 4: chunks ship in the fewest exact
-    bytes — measured 2x fewer at the headline, benchmarks setup_phases
-    probe) must be bit-invisible: every ModelData field identical to the
+    bytes — 2x fewer at int16 host / int8 storage) must be bit-invisible: every ModelData field identical to the
     unchunked path for every (host dtype, y_storage) combination."""
     import clonealign_tpu.models.multinomial as mm
 
@@ -245,8 +244,8 @@ def test_chunked_bf16_storage_streams_per_chunk():
 
 
 def test_log_factorial_table_bit_identical_to_lgamma():
-    """The table-gather log-binomial (round 4: sidesteps a measured 30-42 s
-    XLA:TPU compile of 2-D lgamma) must be BIT-identical to the lgamma
+    """The table-gather log-binomial (round 4: sidesteps the compile of a
+    2-D lgamma) must be BIT-identical to the lgamma
     formulation it replaces: the table is lax.lgamma on the same inputs."""
     import jax
     import clonealign_tpu.models.multinomial as mm
@@ -386,3 +385,18 @@ def test_auto_restart_batching_scales_with_compute_itemsize():
     assert _auto_restart_batching(n_elems * 2, lanes, 1, 1) == "map"
     # per-device share: an 8-device mesh restores the vmap choice
     assert _auto_restart_batching(n_elems, lanes, 8, 8) == "vmap"
+
+
+def test_precision_policy_pinned():
+    """The policy measured on the H100 (models/multinomial.py, PERF.md): the
+    A group at HIGHEST, the Z normalizer at DEFAULT (TF32 on Hopper meets
+    every parity bar). Guards against silent drift unless an experiment
+    overrides it through the environment."""
+    import os
+
+    from clonealign_tpu.models import multinomial as mm
+
+    if "CLONEALIGN_A_PRECISION" not in os.environ:
+        assert mm._A_PRECISION == "highest"
+    if "CLONEALIGN_Z_PRECISION" not in os.environ:
+        assert mm._Z_PRECISION == "default"

@@ -31,14 +31,11 @@ def test_trace_writes_profile(tmp_path):
     assert found, "no trace artifacts written"
 
 
-def test_persistent_cache_skips_cpu(tmp_path):
-    # suite runs on CPU (conftest) -> gate must skip
+def test_persistent_cache_skips_cpu(monkeypatch):
+    # suite runs on CPU (conftest) -> gate must skip and set nothing, even
+    # with the JAX variable present
     assert jax.default_backend() == "cpu"
-    assert enable_persistent_cache(str(tmp_path / "cache")) is None
     before = jax.config.jax_compilation_cache_dir
-    try:
-        assert enable_persistent_cache(str(tmp_path / "cache2"), tpu_only=False) is not None
-    finally:
-        # restore: the cache dir is global config; later tests in this
-        # process must not write compiles into a soon-deleted tmp dir
-        jax.config.update("jax_compilation_cache_dir", before)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert enable_persistent_cache() is None
+    assert jax.config.jax_compilation_cache_dir == before
